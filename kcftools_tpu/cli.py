@@ -18,7 +18,8 @@ from .utils.logger import KcfError, Logger
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="kcftools",
-        description="TPU-native k-mer based genomic variation screening",
+        description="k-mer based genomic variation screening on "
+        "accelerators",
     )
     parser.add_argument("--version", action="version", version=__version__)
     subparsers = parser.add_subparsers(dest="command", required=True)
@@ -45,8 +46,7 @@ def _print_memory_usage():
 def _maybe_init_distributed():
     """Multi-host init from env (no-op single-process):
     KCFTOOLS_COORDINATOR=host:port KCFTOOLS_NUM_PROCS=N KCFTOOLS_PROC_ID=i
-    The device mesh code then spans all hosts (ICI within a slice, DCN
-    across)."""
+    The device mesh code then spans all hosts."""
     n = int(os.environ.get("KCFTOOLS_NUM_PROCS", "1"))
     if n > 1:
         from .parallel.mesh import init_distributed

@@ -58,8 +58,8 @@ def pack_kmers(codes: np.ndarray, valid: np.ndarray, k: int):
 def split_hi_lo(kmers: np.ndarray, k: int):
     """Split packed k-mers into (hi, lo) uint32: hi = first min(k,16)
     bases, lo = the remaining k-16 (0 when k <= 16). This is the key
-    layout used by the hash table and the device pipeline (TPUs have no
-    native 64-bit integers)."""
+    layout used by the hash table and the device pipeline (32-bit device
+    arithmetic throughout)."""
     kmers = np.asarray(kmers, dtype=np.uint64)
     n_hi = min(k, 16)
     n_lo = k - n_hi

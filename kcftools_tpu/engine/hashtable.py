@@ -1,15 +1,14 @@
 """Bucketed two-choice hash table for device k-mer lookups.
 
 Replaces the reference's signature-map + prefix-LUT + binary-search
-lookup (reference: Data/KMC.java:292-326) with a TPU-friendly layout:
+lookup (reference: Data/KMC.java:292-326) with a gather-friendly layout:
 keys live in buckets of 4 slots; every key is in one of two buckets
 derived from two 32-bit mixes of its (hi, lo) halves. The device array
 is ONE interleaved (nb, 12) uint32 array - row = [hi x4 | lo x4 |
 cnt x4] - so a batched lookup is exactly two 48-byte row gathers +
 vectorized compares per query, fixed shape, no data-dependent control
-flow. (Measured on v5e: the previous (nb, 8) x 3-array layout cost six
-32-byte gathers per query and ran 4-6x slower - row size, not compute,
-is the lookup's speed-of-light.)
+flow. (An earlier (nb, 8) x 3-array layout cost six 32-byte gathers
+per query instead of two 48-byte rows.)
 
 The table is built on host with vectorized round-based insertion (each
 round places every still-homeless key into the emptier of its two

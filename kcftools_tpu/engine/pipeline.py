@@ -256,9 +256,8 @@ def gap_scan_core(valid, present, win_len, *, k: int):
 class WindowScorer:
     """Wraps a KmerTable on device + jitted scoring over padded batches.
 
-    Designed for high-latency host<->device links: one uint8 upload and
-    one packed readback per batch, with async dispatch so transfers and
-    compute of consecutive batches overlap.
+    One uint8 upload and one packed readback per batch, with async
+    dispatch so transfers and compute of consecutive batches overlap.
     """
 
     def __init__(self, table, min_count: int = 1, device=None):

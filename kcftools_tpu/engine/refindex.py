@@ -9,8 +9,8 @@ sample's database. Factoring the stream as
 
 turns each sample's lookup phase into one sorted-merge join of R against
 the sample's (sorted) KMC table plus one small-table gather - both
-host-bandwidth operations in the native tier - leaving the TPU the dense
-window-scan work. The artifact is cached beside the FASTA
+host-bandwidth operations in the native tier - leaving the device the
+dense window-scan work. The artifact is cached beside the FASTA
 (``<fasta>.kcfidx.k<k>[.fwd].npz``) and regenerated on staleness, like
 the reference's faidx sidecar (FastaIndex.java:31-36).
 """

@@ -6,6 +6,11 @@ startup cost).
 64-bit support: k-mer count sums and score math use float64/int64 on
 host; device code is told explicitly which dtypes to use. Enabling x64
 keeps host<->device dtype handling consistent.
+
+Persistent compilation cache: when ``JAX_COMPILATION_CACHE_DIR`` is set,
+JAX reads it itself and nothing here overrides it. Otherwise compiled
+programs go to ``<checkout>/.jax_cache`` - a fixed path, because the
+path is part of the cache key.
 """
 
 import os as _os
@@ -14,14 +19,11 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: pipeline shapes are stable across runs
-# and first-compile latency can be large (remote-compile TPU setups).
-_cache_dir = _os.environ.get(
-    "KCFTOOLS_JAX_CACHE", _os.path.expanduser("~/.cache/kcftools_tpu/jax")
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache",
 )
-try:
-    _os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
+
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-except Exception:
-    pass

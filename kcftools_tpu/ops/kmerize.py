@@ -1,10 +1,10 @@
 """Device-side canonical k-mer extraction over padded window batches.
 
-TPUs have no native 64-bit integers, so k-mers are handled as (hi, lo)
-uint32 pairs: hi = first min(k,16) bases big-endian, lo = the remaining
-k-16 bases. Both halves of both strands fall out of two 16-base "rolling
-pack" arrays computed with 16 unrolled shift-or passes on the VPU - no
-sequential scan, no data-dependent shapes.
+K-mers are handled as (hi, lo) uint32 pairs: hi = first min(k,16)
+bases big-endian, lo = the remaining k-16 bases, so all device
+arithmetic stays 32-bit. Both halves of both strands fall out of two
+16-base "rolling pack" arrays computed with 16 unrolled elementwise
+shift-or passes - no sequential scan, no data-dependent shapes.
 
 Let c[j] be the 2-bit code at position j (windows padded with zeros):
 

@@ -1,15 +1,9 @@
-"""Partitioned all-pairs k-mer join: the Pallas TPU lookup engine.
+"""Partitioned all-pairs k-mer join: the device lookup engine.
 
-Replaces per-query random table access for device-resident k-mer count
-lookups (the hot op of GetVariants.getVariations - reference
-Data/KMC.java:292-326 resolves each query with a signature scan +
-prefix-LUT + suffix binary search; the earlier device path here used
-two 48-byte XLA row gathers per query). TPUs have no hardware gather:
-XLA lowers those row gathers to a serial loop that measures ~10-19M
-lookups/s on a v5e - roughly two orders of magnitude under what the
-chip's VPU can do on streaming compares.
-
-The TPU-shaped formulation removes the random access entirely:
+Resolves device-resident k-mer count lookups (the hot op of
+GetVariants.getVariations - reference Data/KMC.java:292-326 resolves
+each query with a signature scan + prefix-LUT + suffix binary search)
+without per-query random table access:
 
 * HOST (build, once per table): every key goes to partition
   ``h1(key) & (P-1)`` (the same 32-bit mix as engine/hashtable.py's
@@ -20,16 +14,12 @@ The TPU-shaped formulation removes the random access entirely:
 * HOST (route, per query batch): queries are grouped by the same
   partition function into (P, T_q) tiles plus an int32 source-index
   map (-1 padding) - a native-radix counting sort at memory speed.
-* DEVICE (the Pallas kernel): grid = (P,); each step loads one query
-  tile + its table tile into VMEM and computes
+* DEVICE (one XLA program): for every partition,
 
       counts[q] = sum_t (q_hi==t_hi & q_lo==t_lo) * t_cnt
 
-  as pure VPU broadcast-compares and a lane reduction - fixed shapes,
-  zero gathers, zero data-dependent control flow. Block loads are
-  double-buffered across grid steps by the Pallas pipeline, so the
-  kernel is compute-bound at ~T_t integer ops per query instead of
-  latency-bound on HBM row fetches.
+  as broadcast compares and a reduction over the table tile - fixed
+  shapes, no gathers, no data-dependent control flow.
 
 Exactness: a query matches a table slot only on the FULL (hi, lo) key,
 every key is stored exactly once, and both sides use the same
@@ -162,123 +152,36 @@ def route_queries(kmers_u64, k, P, tile=None):
     return qh, ql, src
 
 
-_P_BLK = 8  # partitions per grid step (TPU sublane granularity)
-
-
 def _unpack_planar(w):
     """(B, Tt/4) planar-packed uint8 counts -> (B, Tt) uint32: byte b
     of word j holds the count of slot b*(Tt/4)+j, so unpacking is a
-    concat of shifted planes (Mosaic rejects the interleaved layout's
-    (B, Tt/4, 4) -> (B, Tt) shape cast)."""
+    concat of shifted planes."""
     return jnp.concatenate(
         [((w >> jnp.uint32(8 * b)) & jnp.uint32(0xFF)) for b in range(4)],
         axis=-1,
     )
 
 
-def _kernel_packed(qh_ref, ql_ref, th_ref, tl_ref, tw_ref, out_ref):
-    # packed-count variant: counts stay byte-packed all the way into
-    # VMEM (3/4 less HBM and wire for the count plane) and unpack
-    # per-tile on the VPU
-    qh = qh_ref[...]
-    ql = ql_ref[...]
-    th = th_ref[...]
-    tl = tl_ref[...]
-    tc = _unpack_planar(tw_ref[...])
-    m = (qh[:, :, None] == th[:, None, :]) & (
-        ql[:, :, None] == tl[:, None, :]
-    )
-    out_ref[...] = jnp.sum(
-        jnp.where(m, tc[:, None, :].astype(jnp.int32), jnp.int32(0)),
-        axis=2,
-        dtype=jnp.int32,
-    )
-
-
-def _kernel(qh_ref, ql_ref, th_ref, tl_ref, tc_ref, out_ref):
-    # one grid step joins _P_BLK partitions: (B, Tq) queries against
-    # (B, Tt) table rows, partition-aligned on the leading axis
-    qh = qh_ref[...]
-    ql = ql_ref[...]
-    th = th_ref[...]
-    tl = tl_ref[...]
-    tc = tc_ref[...]
-    m = (qh[:, :, None] == th[:, None, :]) & (
-        ql[:, :, None] == tl[:, None, :]
-    )
-    # int32 reduction (Mosaic has no unsigned reduce): counts are
-    # < 2^31 and a query matches at most one slot (keys are unique),
-    # so the signed sum is exact; the wrapper views it back as uint32
-    out_ref[...] = jnp.sum(
-        jnp.where(m, tc[:, None, :].astype(jnp.int32), jnp.int32(0)),
-        axis=2,
-        dtype=jnp.int32,
-    )
-
-
 @functools.lru_cache(maxsize=32)
-def _pjoin_fn(P, Tq, Tt, backend, packed):
+def pjoin_lookup_fn(P, Tq, Tt, packed=False):
+    """The jitted (P,Tq)x(P,Tt) -> (P,Tq) partition-join counts
+    function. ``packed``: the count operand is (P, Tt/4) planar
+    byte-packed uint32 words."""
     import jax
 
-    if backend == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        B = _P_BLK if P % _P_BLK == 0 else 1
-        if B == 1 and P % 8:
-            # tiny tables: single block over the whole array
-            B = P
-        # np.int32, not a Python literal: the package runs jax in x64
-        # mode, where a literal 0 in an index map traces as i64 and
-        # Mosaic fails to legalize the index function's return
-        z = np.int32(0)
-
-        def _bs(T):
-            return pl.BlockSpec((B, T), lambda p: (p, z),
-                                memory_space=pltpu.VMEM)
-
-        kern = _kernel_packed if packed else _kernel
-        Tc = Tt // 4 if packed else Tt
-
-        def run(qh, ql, th, tl, tc):
-            out = pl.pallas_call(
-                kern,
-                grid=(P // B,),
-                in_specs=[_bs(Tq), _bs(Tq), _bs(Tt), _bs(Tt), _bs(Tc)],
-                out_specs=_bs(Tq),
-                out_shape=jax.ShapeDtypeStruct((P, Tq), jnp.int32),
-            )(qh, ql, th, tl, tc)
-            # counts < 2^31: the signed result IS the uint32 pattern
-            return jax.lax.bitcast_convert_type(out, jnp.uint32)
-
-        return jax.jit(run)
-
-    def run_xla(qh, ql, th, tl, tc):
+    def run(qh, ql, th, tl, tc):
         if packed:
             tc = _unpack_planar(tc)
         m = (qh[:, :, None] == th[:, None, :]) & (
             ql[:, :, None] == tl[:, None, :]
         )
         return jnp.sum(
-            jnp.where(m, tc[:, None, :], jnp.uint32(0)).astype(
-                jnp.uint32
-            ),
+            jnp.where(m, tc[:, None, :], jnp.uint32(0)),
             axis=2,
             dtype=jnp.uint32,
         )
 
-    return jax.jit(run_xla)
-
-
-def pjoin_lookup_fn(P, Tq, Tt, packed=False):
-    """The jitted (P,Tq)x(P,Tt) -> (P,Tq) partition-join counts
-    function: the Pallas kernel on TPU backends, an equivalent XLA
-    program elsewhere (CPU tests / virtual meshes). ``packed``: the
-    count operand is (P, Tt/4) planar byte-packed uint32 words."""
-    import jax
-
-    backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    return _pjoin_fn(P, Tq, Tt, backend, packed)
+    return jax.jit(run)
 
 
 def quantile_partition_ids(keys_u64, b, k):
@@ -332,7 +235,7 @@ def tile_sorted(keys_sorted, k, b, tile=None, counts=None):
 
 
 def pjoin_lookup_np(table, kmers_u64):
-    """Host-side end-to-end lookup through the device kernel: route,
+    """Host-side end-to-end lookup through the device join: route,
     execute, unpartition. Returns uint32 counts aligned to the input
     order (absent keys -> 0)."""
     import jax

@@ -13,7 +13,7 @@ device(s). Host STAGING is bounded by
 
 (two passes' staging may be live at once because of the build overlap)
 regardless of the total table size; the built tables are DEVICE
-memory - HBM on a real pod, host RAM on the virtual CPU mesh either
+memory - HBM on real devices, host RAM on the virtual CPU mesh either
 way. When the budget holds fewer shards than the mesh's table axis,
 the loader makes several passes over the file, staging a subset of
 shards per pass (keys outside the pass are discarded on the fly).
@@ -82,7 +82,7 @@ class ShardedTableLoader:
         n = self.reader.total_kmers
         # HOST staging bytes per shard: the keys routed to it
         # (hi+lo+cnt u32 x3). The built table is DEVICE memory (HBM on
-        # a real pod; on the virtual CPU mesh it is host RAM either
+        # real devices; on the virtual CPU mesh it is host RAM either
         # way, with or without passes), so it no longer counts against
         # the host staging budget. Builds overlap the next pass's
         # streaming, so up to two passes' staging is live at once -

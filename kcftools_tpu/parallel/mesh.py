@@ -2,18 +2,20 @@
 
 The reference's only parallelism is a shared-memory thread pool over
 windows with one shared in-RAM KMC table (Plugins/GetVariants.java:
-129-159, Data/KMC.java:69-75). The TPU-native equivalents:
+129-159, Data/KMC.java:69-75). The device-mesh equivalents:
 
-* ``data`` axis: window batches are sharded across chips (the analog of
-  the thread pool) - pure data parallelism, no communication beyond the
-  host gather of per-window scalars.
-* ``table`` axis: for k-mer tables larger than one chip's HBM, buckets
-  are sharded across chips; queries are all-gathered over the table axis
-  and per-shard partial counts are reduce-scattered back (a k-mer's
-  bucket lives on exactly one shard, so the sum over shards is exact).
+* ``data`` axis: window batches are sharded across devices (the analog
+  of the thread pool) - pure data parallelism, no communication beyond
+  the host gather of per-window scalars.
+* ``table`` axis: for k-mer tables larger than one device's memory,
+  buckets are sharded across devices; queries are all-gathered over the
+  table axis and per-shard partial counts are reduce-scattered back (a
+  k-mer's bucket lives on exactly one shard, so the sum over shards is
+  exact).
 
-Multi-host: ``init_distributed`` wraps jax.distributed; the same mesh
-code spans hosts (ICI within a slice, DCN across).
+The mesh is a plain (data, table) reshape of the device list. Multi-host:
+``init_distributed`` wraps jax.distributed; the same mesh code spans
+hosts.
 """
 
 import numpy as np
@@ -39,8 +41,8 @@ def make_mesh(data: int = None, table: int = 1, devices=None) -> Mesh:
     TABLE axis partitions the processes: each host then stores a
     disjoint slice of the k-mer table (table_bytes / n_hosts at peak -
     the wheat-scale requirement) and the streaming loader stages only
-    local shards; the table-axis psum crosses hosts over DCN while the
-    data axis stays host-local."""
+    local shards; the table-axis psum crosses hosts while the data axis
+    stays host-local."""
     if devices is None:
         devices = jax.devices()
         n_proc = jax.process_count()

@@ -6,11 +6,12 @@ sharded along ``table``: every key's bucket lives on exactly one shard,
 so each shard computes partial counts for the queries it can see
 (buckets it owns; zeros elsewhere) and a ``psum`` over the table axis
 yields exact global counts. Arrays sharded only along ``data`` are
-replicated along ``table``, so no explicit query routing is needed
-within a slice - the psum rides ICI.
+replicated along ``table``, so no explicit query routing is needed -
+the psum is the only collective.
 
-On one chip this degenerates to the plain WindowScorer; on N chips with
-a replicated table it is pure data parallelism (no collectives at all).
+On one device this degenerates to the plain WindowScorer; on N devices
+with a replicated table it is pure data parallelism (no collectives at
+all).
 """
 
 import functools
@@ -24,10 +25,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from ..engine.pipeline import _stack_results, _unstack, score_windows_core
 from ..ops.lookup import bucket_hashes_jnp
 
-try:  # modern jax
-    from jax import shard_map
-except ImportError:  # older fallback
-    from jax.experimental.shard_map import shard_map  # type: ignore
+from jax import shard_map
 
 
 def _sharded_lookup(hi, lo, tbl, nb_total, axis="table"):

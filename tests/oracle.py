@@ -1,6 +1,6 @@
 """Independent, deliberately-naive re-implementation of the reference's
 per-window semantics (state machine and score math), used as the oracle
-the vectorized/TPU pipeline is tested against.
+the vectorized/device pipeline is tested against.
 
 Semantics transcribed from the reference behavior description:
 GetVariants.processWindow (:202-261), getDistance (:267-273),

@@ -5,9 +5,8 @@ the reference's gap-run state machine (Plugins/GetVariants.java:
 202-261) exactly - here checked against tests/oracle.py through the
 scorer interface, plus an end-to-end CLI byte-identity check against
 the hybrid engine (the same gate every engine passes in
-test_engines_agree.py). Runs on the CPU backend (the pjoin XLA
-fallback); the Pallas path is checked on real hardware by the bench's
-lookup rung and the device CLI runs.
+test_engines_agree.py). Runs on the CPU backend; the same XLA join
+program runs on the GPU in chip_smoke.py.
 """
 
 import numpy as np
